@@ -17,7 +17,7 @@ import os
 
 import numpy as np
 
-from focr_tpu.fonts.ft import Canvas, Face, HintingOptions
+from focr_jax.fonts.ft import Canvas, Face, HintingOptions
 
 FONTS = {
     "mono": "/usr/share/fonts/truetype/dejavu/DejaVuSansMono.ttf",

@@ -16,7 +16,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from focr_tpu.fonts.ft import Face
+from focr_jax.fonts.ft import Face
 from tests.ft_golden_common import (
     available_fonts, entry_key, iter_matrix, render_entry,
 )

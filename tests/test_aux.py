@@ -9,14 +9,14 @@ import sys
 import numpy as np
 import pytest
 
-from focr_tpu.models.types import BoxSize, DecodeOptions, RenderOptions
+from focr_jax.models.types import BoxSize, DecodeOptions, RenderOptions
 
 
 def test_grid_bank_cache_roundtrip(mono_font_path, tmp_path, monkeypatch):
-    from focr_tpu.fonts.bank import build_grid_bank
-    from focr_tpu.fonts.ft import Face
+    from focr_jax.fonts.bank import build_grid_bank
+    from focr_jax.fonts.ft import Face
 
-    monkeypatch.setenv("FOCR_TPU_CACHE_DIR", str(tmp_path))
+    monkeypatch.setenv("FOCR_CACHE_DIR", str(tmp_path))
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
     cold = build_grid_bank(face, "AB01", ropts, 120, 13)
@@ -35,10 +35,10 @@ def test_grid_bank_cache_roundtrip(mono_font_path, tmp_path, monkeypatch):
 
 
 def test_needle_bank_cache_roundtrip(mono_font_path, tmp_path, monkeypatch):
-    from focr_tpu.fonts.bank import build_needles
-    from focr_tpu.fonts.ft import Face
+    from focr_jax.fonts.bank import build_needles
+    from focr_jax.fonts.ft import Face
 
-    monkeypatch.setenv("FOCR_TPU_CACHE_DIR", str(tmp_path))
+    monkeypatch.setenv("FOCR_CACHE_DIR", str(tmp_path))
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
     cold = build_needles(face, "AB0", ropts, BoxSize.ALPHABET, 1, 0)
@@ -53,10 +53,10 @@ def test_needle_bank_cache_roundtrip(mono_font_path, tmp_path, monkeypatch):
 
 
 def test_cache_disabled_env(tmp_path, monkeypatch):
-    from focr_tpu.utils import cache
+    from focr_jax.utils import cache
 
-    monkeypatch.setenv("FOCR_TPU_CACHE_DIR", str(tmp_path))
-    monkeypatch.setenv("FOCR_TPU_NO_BANK_CACHE", "1")
+    monkeypatch.setenv("FOCR_CACHE_DIR", str(tmp_path))
+    monkeypatch.setenv("FOCR_NO_BANK_CACHE", "1")
     cache.store_arrays("k", {"a": np.arange(3)})
     assert cache.load_arrays("k") is None
     assert os.listdir(tmp_path) == []
@@ -65,9 +65,9 @@ def test_cache_disabled_env(tmp_path, monkeypatch):
 def _synth_page(mono_font_path, lines, tmp_path, name):
     from PIL import Image
 
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.types import FOCR_DEFAULT_ALPHABET
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.types import FOCR_DEFAULT_ALPHABET
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -79,7 +79,7 @@ def _synth_page(mono_font_path, lines, tmp_path, name):
 
 
 def test_focr_cli_error_isolation(mono_font_path, tmp_path, capsys):
-    from focr_tpu.cli.focr import main
+    from focr_jax.cli.focr import main
 
     good, dopts = _synth_page(mono_font_path, ["AB01"], tmp_path, "good.png")
     bad = tmp_path / "bad.png"
@@ -109,7 +109,7 @@ def test_focr_cli_error_isolation(mono_font_path, tmp_path, capsys):
 
 
 def test_ncc_cli_error_isolation(mono_font_path, tmp_path, capsys):
-    from focr_tpu.cli.ncc import main
+    from focr_jax.cli.ncc import main
 
     good, _ = _synth_page(mono_font_path, ["AB01"], tmp_path, "good.png")
     bad = tmp_path / "bad.png"
@@ -131,7 +131,7 @@ def test_ncc_cli_error_isolation(mono_font_path, tmp_path, capsys):
 
 
 def test_metrics_stderr_dash(capsys):
-    from focr_tpu.utils.metrics import write_metrics
+    from focr_jax.utils.metrics import write_metrics
 
     write_metrics("-", a=1)
     cap = capsys.readouterr()
@@ -145,7 +145,7 @@ def test_load_gray_pnm_formats(tmp_path):
     import numpy as np
     from PIL import Image
 
-    from focr_tpu.io.images import load_gray
+    from focr_jax.io.images import load_gray
 
     rng = np.random.default_rng(3)
     gray = rng.integers(0, 256, (24, 31), dtype=np.uint8)
@@ -166,7 +166,7 @@ def test_ncc_metrics_counts_match_object_path(mono_font_path, tmp_path):
     """--metrics-json lines/hits must be identical whether post-processing ran
     through the fused text path (default) or the object path (--csv forces
     it) — hits == decoded characters either way."""
-    from focr_tpu.cli.ncc import main
+    from focr_jax.cli.ncc import main
 
     p, _ = _synth_page(mono_font_path, ["AB01", "10BA"], tmp_path, "p.png")
     vals = []
@@ -178,3 +178,72 @@ def test_ncc_metrics_counts_match_object_path(mono_font_path, tmp_path):
         m = json.loads(metrics.read_text())
         vals.append((m["lines"], m["hits"]))
     assert vals[0] == vals[1] and vals[0][0] >= 2 and vals[0][1] >= 6
+
+
+@pytest.mark.parametrize("backend,env_dir", [("gpu", None), ("gpu", "set"), ("cpu", None)])
+def test_compile_cache_placement(backend, env_dir, tmp_path, monkeypatch):
+    """Where JAX_COMPILATION_CACHE_DIR is set the package sets no directory
+    (JAX reads the variable itself); unset, the cache goes to the fixed
+    <repo>/.jax_cache/; on the CPU backend it is never enabled here."""
+    import jax
+
+    import focr_jax
+
+    env_value = str(tmp_path / "jaxcache") if env_dir else None
+    if env_value:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_value)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(focr_jax, "_compile_cache_decided", False)
+    monkeypatch.setattr(focr_jax._jax, "default_backend", lambda: backend)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        jax.config.update("jax_compilation_cache_dir", env_value)
+        focr_jax.enable_compile_cache()
+        got = jax.config.jax_compilation_cache_dir
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want = {
+        ("gpu", None): os.path.join(repo, ".jax_cache"),
+        ("gpu", "set"): env_value,
+        ("cpu", None): None,
+    }[(backend, env_dir)]
+    assert got == want
+
+
+def test_bank_cache_defaults_inside_checkout(monkeypatch):
+    from focr_jax.utils import cache
+
+    monkeypatch.delenv("FOCR_CACHE_DIR", raising=False)
+    monkeypatch.delenv("FOCR_NO_BANK_CACHE", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache.cache_dir() == os.path.join(repo, ".bank_cache")
+
+
+def test_device_path_never_imports_pillow():
+    """Pillow is only for reading and writing image files: decoding page
+    arrays on the device path must not import it."""
+    import subprocess
+
+    code = (
+        "import sys, numpy as np\n"
+        "from focr_jax.fonts import DEJAVU_MONO\n"
+        "from focr_jax.fonts.ft import Face\n"
+        "from focr_jax.io.synth import synthesize_page\n"
+        "from focr_jax.models.focr import decode_pages\n"
+        "from focr_jax.models.ncc import NccMatcher\n"
+        "from focr_jax.models.types import DecodeOptions, RenderOptions\n"
+        "f = Face(DEJAVU_MONO); r = RenderOptions(size=11.0)\n"
+        "d = DecodeOptions(x_start=4, y_start=4, line_height=13, line_advance=15, width=100)\n"
+        "p = synthesize_page(f, ['AB01'], d, r, 'AB01', (40, 120))\n"
+        "decode_pages([p], f, 'AB01', d, r)\n"
+        "NccMatcher(f, 'AB', r).get_hits_many([p])\n"
+        "assert 'PIL' not in sys.modules, 'PIL imported'\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=repo, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "JAX_PLATFORMS": "cpu"},
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]

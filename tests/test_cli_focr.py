@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from focr_tpu.cli.focr import main as focr_main
-from focr_tpu.fonts.ft import Face
-from focr_tpu.io.images import load_gray, save_gray
-from focr_tpu.io.synth import synthesize_page
-from focr_tpu.models.types import DecodeOptions, FOCR_DEFAULT_ALPHABET, RenderOptions
+from focr_jax.cli.focr import main as focr_main
+from focr_jax.fonts.ft import Face
+from focr_jax.io.images import load_gray, save_gray
+from focr_jax.io.synth import synthesize_page
+from focr_jax.models.types import DecodeOptions, FOCR_DEFAULT_ALPHABET, RenderOptions
 from tests.test_focr_oracle import width_for_cells
 
 

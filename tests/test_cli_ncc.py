@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from focr_tpu.cli.ncc import main as ncc_main
-from focr_tpu.fonts.ft import Face
-from focr_tpu.io.images import save_gray
-from focr_tpu.models.ncc import NccMatcher
-from focr_tpu.models.types import RenderOptions
+from focr_jax.cli.ncc import main as ncc_main
+from focr_jax.fonts.ft import Face
+from focr_jax.io.images import save_gray
+from focr_jax.models.ncc import NccMatcher
+from focr_jax.models.types import RenderOptions
 
 
 @pytest.fixture(scope="module")
@@ -121,3 +121,14 @@ def test_cli_verbose_sync_measured_timing(stamped_page, mono_font_path, capsys):
     assert any(
         ln.startswith("`") and "elapsed" in ln for ln in cap.err.splitlines()
     )
+
+
+@pytest.mark.parametrize("flag", [["--device-kernel", "pallas"], ["--wire", "delta"]])
+def test_cli_removed_kernel_flags_rejected(stamped_page, mono_font_path, flag, capsys):
+    """The device path has one kernel; the options that chose another are
+    gone, and argparse refuses them."""
+    path, _ = stamped_page
+    with pytest.raises(SystemExit) as e:
+        ncc_main(["-i", path, "-f", mono_font_path, "-t", "13", *flag])
+    assert e.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err

@@ -6,13 +6,13 @@ config, not just the defaults)."""
 import numpy as np
 import pytest
 
-from focr_tpu.models.types import BoxSize, DecodeOptions, RenderOptions
-from focr_tpu.fonts.ft import Face, HintingOptions
+from focr_jax.models.types import BoxSize, DecodeOptions, RenderOptions
+from focr_jax.fonts.ft import Face, HintingOptions
 
 
 def test_font_box_matcher_matches_oracle(mono_font_path):
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -27,9 +27,9 @@ def test_font_box_matcher_matches_oracle(mono_font_path):
 
 
 def test_save_letters_dumps(mono_font_path, tmp_path, monkeypatch):
-    from focr_tpu.cli.ncc import main
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.types import FOCR_DEFAULT_ALPHABET
+    from focr_jax.cli.ncc import main
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.types import FOCR_DEFAULT_ALPHABET
     from PIL import Image
 
     face = Face(mono_font_path)
@@ -49,7 +49,7 @@ def test_save_letters_dumps(mono_font_path, tmp_path, monkeypatch):
     assert any(d.startswith("A-500_0") for d in dumps)
     # pixel parity: the reference dumps the RAW white-on-black canvas
     # (canvas_to_lum8, ncc.rs:645/917-923 — no inversion)
-    from focr_tpu.models.ncc import NccMatcher
+    from focr_jax.models.ncc import NccMatcher
 
     matcher = NccMatcher(face, "AB", ropts, x_bits=1)
     for nd in matcher.needles:
@@ -60,9 +60,9 @@ def test_save_letters_dumps(mono_font_path, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kern", [0.9, 1.5])
 def test_kerning_matches_oracle(mono_font_path, kern):
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.focr import GridDecoder
-    from focr_tpu.oracle.focr_oracle import decode_image
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.focr import GridDecoder
+    from focr_jax.oracle.focr_oracle import decode_image
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0, kern_x=kern)
@@ -75,9 +75,9 @@ def test_kerning_matches_oracle(mono_font_path, kern):
 
 
 def test_full_hinting_matches_oracle(mono_font_path):
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.focr import GridDecoder
-    from focr_tpu.oracle.focr_oracle import decode_image
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.focr import GridDecoder
+    from focr_jax.oracle.focr_oracle import decode_image
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0, hinting=HintingOptions(full=True, size=11.0))
@@ -90,9 +90,9 @@ def test_full_hinting_matches_oracle(mono_font_path):
 
 
 def test_full_hinting_prop_matches_oracle(sans_font_path):
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.focr import GridDecoder
-    from focr_tpu.oracle.focr_oracle import decode_image
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.focr import GridDecoder
+    from focr_jax.oracle.focr_oracle import decode_image
 
     face = Face(sans_font_path)
     alpha = "AWim01"
@@ -110,7 +110,7 @@ def test_f26dot6_ties_away_from_zero():
     """Rust f32::round (font-kit's f32->26.6 conversion) rounds ties AWAY
     from zero; banker's rounding diverges at half-ulp translations and shifts
     rasterization by 1/64 px (e.g. cursor cell 16 of the canonical grid)."""
-    from focr_tpu.fonts.ft import _to_f26dot6
+    from focr_jax.fonts.ft import _to_f26dot6
 
     assert _to_f26dot6(125.2265625) == 8015  # 8014.5 -> away from zero
     assert _to_f26dot6(0.0078125) == 1  # 0.5 -> 1 (banker's would give 0)
@@ -125,11 +125,11 @@ def test_prop_decoder_tie_rounding_matches_oracle(mono_font_path):
     (that is how the divergence was found)."""
     import numpy as np
 
-    from focr_tpu.fonts.bank import build_prop_bank
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.models.focr_prop import PropDecoder
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.oracle.focr_oracle import decode_image
+    from focr_jax.fonts.bank import build_prop_bank
+    from focr_jax.fonts.ft import Face
+    from focr_jax.models.focr_prop import PropDecoder
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.oracle.focr_oracle import decode_image
 
     # force the sequential path on a MONOSPACE font (advance 7.82617 px at
     # size 13): cell 16 hits tx*64 = .5 exactly
@@ -151,25 +151,23 @@ def test_wide_needle_overflow_redoes_on_device(mono_font_path, monkeypatch):
     (host kernels reject them, like the reference's panic) and stay exact."""
     import numpy as np
 
-    import focr_tpu.models.ncc as ncc_mod
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
+    import focr_jax.models.ncc as ncc_mod
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
 
-    monkeypatch.setattr(ncc_mod, "_CAP", 4)  # force overflow on the XLA path
+    monkeypatch.setattr(ncc_mod, "_CAP", 4)  # force overflow
     face = Face(mono_font_path)
     ropts = RenderOptions(size=13.0)
     dopts = DecodeOptions(x_start=4, y_start=5, line_height=18, line_advance=20, width=140)
     page = synthesize_page(face, ["ABAB", "BABA"], dopts, ropts, "AB", (50, 150))
-    m = NccMatcher(face, "AB", ropts, box_size=BoxSize.FONT, threshold=0.3,
-                   device_kernel="xla")
+    m = NccMatcher(face, "AB", ropts, box_size=BoxSize.FONT, threshold=0.3)
     assert all(g.nw > 16 for g in m.groups), "FONT box at 13pt should be wide"
     hits = m.get_hits(page)
     assert len(hits) > 4  # more than the forced cap => the redo path ran
     # device path with a huge cap is the ground truth for wide needles
     monkeypatch.setattr(ncc_mod, "_CAP", 1 << 14)
-    m2 = NccMatcher(face, "AB", ropts, box_size=BoxSize.FONT, threshold=0.3,
-                    device_kernel="xla")
+    m2 = NccMatcher(face, "AB", ropts, box_size=BoxSize.FONT, threshold=0.3)
     want = m2.get_hits(page)
     key = lambda hs: [(h.letter, h.x, h.y, np.float32(h.similarity).tobytes()) for h in hs]
     assert key(hits) == key(want)
@@ -182,7 +180,7 @@ def test_low_variance_high_mean_window_not_dropped():
     (execution-confirmed regression)."""
     import jax.numpy as jnp
 
-    from focr_tpu.ops import ncc as ncc_ops
+    from focr_jax.ops import ncc as ncc_ops
 
     nh, nw = 25, 16
     needle = np.zeros((nh, nw), dtype=np.uint8)
@@ -200,7 +198,7 @@ def test_low_variance_high_mean_window_not_dropped():
     assert counts[0] >= 1  # the sim=1.0 window must be a candidate
 
     # end-to-end: oracle agrees once the exact replay filters
-    from focr_tpu.models.ncc import exact_similarities
+    from focr_jax.models.ncc import exact_similarities
 
     k = int(counts[0])
     sim = exact_similarities(
@@ -213,9 +211,9 @@ def test_low_variance_high_mean_window_not_dropped():
 def test_negative_overlap_terminates_and_matches(mono_font_path):
     """--overlap -1 must terminate (each hit its own run) in both pipelines
     (the vectorized one previously looped forever)."""
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.post import process_hits, process_hits_struct
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.post import process_hits, process_hits_struct
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -234,8 +232,8 @@ def test_negative_overlap_terminates_and_matches(mono_font_path):
 def test_empty_row_grid_decodes_to_nothing(mono_font_path):
     """y_start at/past the page bottom: zero lines, no crash (reference row
     loop breaks immediately, main.rs:205-207)."""
-    from focr_tpu.models.focr import GridDecoder
-    from focr_tpu.oracle.focr_oracle import decode_image
+    from focr_jax.models.focr import GridDecoder
+    from focr_jax.oracle.focr_oracle import decode_image
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -249,8 +247,8 @@ def test_empty_row_grid_decodes_to_nothing(mono_font_path):
 def test_needle_padding_matches_oracle(mono_font_path):
     """--x-padding/--y-padding enlarge needle canvases (ncc.rs:167); device
     results must stay identical to the oracle with padded needles."""
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -269,8 +267,8 @@ def test_needle_padding_matches_oracle(mono_font_path):
 
 
 def test_ncc_hinting_matches_oracle(mono_font_path):
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0, hinting=HintingOptions(full=True, size=11.0))
@@ -288,7 +286,7 @@ def test_negative_threshold_matches_oracle(mono_font_path):
     """Negative thresholds are legal (sim spans [-1, 1]); the certified
     denominator bound must flip direction there or anti-correlated
     low-variance windows get dropped (execution-confirmed regression)."""
-    from focr_tpu.models.ncc import NccMatcher
+    from focr_jax.models.ncc import NccMatcher
 
     rng = np.random.default_rng(1)
     page = np.full((40, 48), 255 - 237, dtype=np.uint8)
@@ -302,9 +300,7 @@ def test_negative_threshold_matches_oracle(mono_font_path):
     key = lambda hs: [
         (h.letter, h.x, h.y, np.float32(h.similarity).tobytes()) for h in hs
     ]
-    for kernel in ("xla", "pallas"):
-        m = NccMatcher(face, "il", ropts, box_size=BoxSize.CHAR,
-                       threshold=-1.5, device_kernel=kernel)
-        hd = m.get_hits(page)
-        ho = m.get_hits_oracle(page)
-        assert key(hd) == key(ho), kernel
+    m = NccMatcher(face, "il", ropts, box_size=BoxSize.CHAR, threshold=-1.5)
+    hd = m.get_hits(page)
+    ho = m.get_hits_oracle(page)
+    assert key(hd) == key(ho)

@@ -9,13 +9,13 @@ import base64
 import numpy as np
 import pytest
 
-from focr_tpu.models.types import DecodeOptions, FOCR_DEFAULT_ALPHABET, RenderOptions
+from focr_jax.models.types import DecodeOptions, FOCR_DEFAULT_ALPHABET, RenderOptions
 
 
 @pytest.fixture(scope="module")
 def corpus(mono_font_path):
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
 
     rng = np.random.default_rng(7)
     payload = rng.integers(0, 256, 900, dtype=np.uint8).tobytes()
@@ -48,7 +48,7 @@ def _reassemble(decoded_lines: list[str]) -> bytes:
 
 
 def test_focr_roundtrip_device(corpus):
-    from focr_tpu.models.focr import decode_pages
+    from focr_jax.models.focr import decode_pages
 
     payload, lines, pages, face, ropts, dopts = corpus
     results = decode_pages(pages, face, FOCR_DEFAULT_ALPHABET, dopts, ropts)
@@ -57,7 +57,7 @@ def test_focr_roundtrip_device(corpus):
 
 
 def test_focr_roundtrip_oracle(corpus):
-    from focr_tpu.oracle.focr_oracle import decode_image
+    from focr_jax.oracle.focr_oracle import decode_image
 
     payload, lines, pages, face, ropts, dopts = corpus
     texts = [
@@ -69,8 +69,8 @@ def test_focr_roundtrip_oracle(corpus):
 
 
 def test_ncc_roundtrip_device(corpus):
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.post import process_hits
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.post import process_hits
 
     payload, lines, pages, face, ropts, dopts = corpus
     m = NccMatcher(face, "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789=+<>/",

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from focr_tpu.fonts.ft import Face
-from focr_tpu.io.synth import synthesize_page
-from focr_tpu.models.focr import GridDecoder, decode_pages
-from focr_tpu.models.types import DecodeOptions, FOCR_DEFAULT_ALPHABET, RenderOptions
-from focr_tpu.oracle import focr_oracle
+from focr_jax.fonts.ft import Face
+from focr_jax.io.synth import synthesize_page
+from focr_jax.models.focr import GridDecoder, decode_pages
+from focr_jax.models.types import DecodeOptions, FOCR_DEFAULT_ALPHABET, RenderOptions
+from focr_jax.oracle import focr_oracle
 from tests.test_focr_oracle import width_for_cells
 
 
@@ -95,11 +95,11 @@ def test_decode_pages_reuses_decoders(mono_font_path):
     GridDecoder (no re-tracing), and different configs must not collide."""
     import numpy as np
 
-    import focr_tpu.models.focr as focr_mod
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.focr import decode_pages
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
+    import focr_jax.models.focr as focr_mod
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.focr import decode_pages
+    from focr_jax.models.types import DecodeOptions, RenderOptions
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -123,7 +123,7 @@ def test_exact_corr_mat_all_split_regimes(K):
     every split regime: direct (K<=258), template-nibble (K<=4385), and
     both-operand nibble (K<=74565) — the bit-parity invariant behind the SSD
     decoder (ops/ssd.py::_exact_dot)."""
-    from focr_tpu.ops import ssd
+    from focr_jax.ops import ssd
 
     rng = np.random.default_rng(K)
     wins = rng.integers(0, 256, size=(5, K), dtype=np.int32)
@@ -139,7 +139,7 @@ def test_exact_corr_mat_all_split_regimes(K):
 def test_single_stream_parity_and_incrementality(mono):
     """decode_single_stream: bit-identical to decode_batch AND yields early
     rows before later chunks are fetched (main.rs:427-440 streaming)."""
-    import focr_tpu.models.focr as mf
+    import focr_jax.models.focr as mf
 
     ropts = RenderOptions(size=13.0)
     dopts = DecodeOptions(
@@ -183,7 +183,7 @@ def test_exact_corr_large_window_no_i32_overflow():
     import numpy as np
     import jax.numpy as jnp
 
-    from focr_tpu.ops.ssd import exact_corr_mat
+    from focr_jax.ops.ssd import exact_corr_mat
 
     for K in (33100, 40000, 74000):
         w = np.full((2, K), 255, np.uint8)
@@ -200,7 +200,7 @@ def test_exact_corr_large_window_no_i32_overflow():
 def test_single_stream_tall_page_bounded_window(mono):
     """A page with more chunks than the 8-deep in-flight window must decode
     bit-identically to decode_batch (the window refills as chunks drain)."""
-    import focr_tpu.models.focr as mf
+    import focr_jax.models.focr as mf
 
     ropts = RenderOptions(size=13.0)
     dopts = DecodeOptions(

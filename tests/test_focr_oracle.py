@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from focr_tpu.fonts.ft import Face
-from focr_tpu.io.synth import synthesize_page
-from focr_tpu.models.types import DecodeOptions, FOCR_DEFAULT_ALPHABET, RenderOptions
-from focr_tpu.oracle.focr_oracle import advance_px, decode_image
+from focr_jax.fonts.ft import Face
+from focr_jax.io.synth import synthesize_page
+from focr_jax.models.types import DecodeOptions, FOCR_DEFAULT_ALPHABET, RenderOptions
+from focr_jax.oracle.focr_oracle import advance_px, decode_image
 
 
 @pytest.fixture(scope="module")

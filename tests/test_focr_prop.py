@@ -5,7 +5,7 @@ which in turn encodes the reference's greedy semantics (main.rs:112-181)."""
 import numpy as np
 import pytest
 
-from focr_tpu.models.types import DecodeOptions, RenderOptions
+from focr_jax.models.types import DecodeOptions, RenderOptions
 
 
 ALPHA = "AWijm01.:| "  # deliberately wide advance spread (proportional)
@@ -13,8 +13,8 @@ ALPHA = "AWijm01.:| "  # deliberately wide advance spread (proportional)
 
 @pytest.fixture(scope="module")
 def prop_setup(sans_font_path):
-    from focr_tpu.fonts.bank import is_monospace
-    from focr_tpu.fonts.ft import Face
+    from focr_jax.fonts.bank import is_monospace
+    from focr_jax.fonts.ft import Face
 
     face = Face(sans_font_path)
     ropts = RenderOptions(size=12.0)
@@ -26,8 +26,8 @@ def test_prop_bank_phase_exactness(prop_setup):
     """templates[g, p] must equal a fresh rasterization at any cursor t with
     round(t*64) % 64 == p, shifted by round(t*64)//64 — the shift-equivariance
     the whole design rests on."""
-    from focr_tpu.fonts.bank import build_prop_bank
-    from focr_tpu.fonts.ft import Canvas
+    from focr_jax.fonts.bank import build_prop_bank
+    from focr_jax.fonts.ft import Canvas
 
     face, ropts = prop_setup
     bank = build_prop_bank(face, ALPHA, ropts, 16)
@@ -46,9 +46,9 @@ def test_prop_bank_phase_exactness(prop_setup):
 
 
 def test_prop_decode_matches_oracle(prop_setup):
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.focr import GridDecoder
-    from focr_tpu.oracle.focr_oracle import decode_image
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.focr import GridDecoder
+    from focr_jax.oracle.focr_oracle import decode_image
 
     face, ropts = prop_setup
     dopts = DecodeOptions(x_start=4, y_start=5, line_height=16, line_advance=19, width=150)
@@ -73,9 +73,9 @@ def test_prop_decode_matches_oracle(prop_setup):
 def test_prop_edge_clipping_matches_oracle(prop_setup):
     """Narrow crop: glyph ink hangs past the right canvas edge, exercising the
     clipped-||T||^2 cumsum path against the oracle's canvas clipping."""
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.focr import GridDecoder
-    from focr_tpu.oracle.focr_oracle import decode_image
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.focr import GridDecoder
+    from focr_jax.oracle.focr_oracle import decode_image
 
     face, ropts = prop_setup
     dopts = DecodeOptions(x_start=2, y_start=3, line_height=16, line_advance=18, width=33)
@@ -88,9 +88,9 @@ def test_prop_edge_clipping_matches_oracle(prop_setup):
 
 def test_prop_decode_via_decode_pages(prop_setup):
     """decode_pages routes proportional fonts through the device scan path."""
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.focr import decode_pages
-    from focr_tpu.oracle.focr_oracle import decode_image
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.focr import decode_pages
+    from focr_jax.oracle.focr_oracle import decode_image
 
     face, ropts = prop_setup
     dopts = DecodeOptions(x_start=4, y_start=5, line_height=16, line_advance=19, width=120)
@@ -106,10 +106,10 @@ def test_prop_guess_miss_refetches_full_buffer(prop_setup):
     must never compile a fresh remainder slice mid-corpus), and the fetch
     guess must stay on the power-of-two chunk ladder the decoder pre-compiles
     at first use."""
-    from focr_tpu.fonts.bank import build_prop_bank
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.focr_prop import _CHUNK, PropDecoder
-    from focr_tpu.oracle.focr_oracle import decode_image
+    from focr_jax.fonts.bank import build_prop_bank
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.focr_prop import _CHUNK, PropDecoder
+    from focr_jax.oracle.focr_oracle import decode_image
 
     face, ropts = prop_setup
     crop_w = 240
@@ -135,3 +135,35 @@ def test_prop_guess_miss_refetches_full_buffer(prop_setup):
     assert g0 < total, "guess did not shrink; widen the advance spread"
     long_got = run("i" * 70)  # narrow glyphs: more steps than the guess
     assert len(long_got) >= g0, "long line did not exceed the guess (miss path untested)"
+
+
+def test_host_oracle_decode_is_counted(prop_setup, monkeypatch):
+    """A face whose metrics the device decoder cannot take (non-positive
+    advance: build_prop_bank raises ValueError) decodes on the host oracle;
+    every such page is counted in GridDecoder.n_host_pages, and a device
+    decode counts none."""
+    import focr_jax.fonts.bank as bank_mod
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.focr import GridDecoder
+    from focr_jax.oracle.focr_oracle import decode_image
+
+    face, ropts = prop_setup
+    dopts = DecodeOptions(x_start=4, y_start=5, line_height=16, line_advance=19, width=110)
+    shape = (65, 130)
+    pages = np.stack([
+        synthesize_page(face, [t], dopts, ropts, ALPHA, shape) for t in ("AWij01", "10jiWA")
+    ])
+    device = GridDecoder(face, ALPHA, dopts, ropts, shape)
+    want = device.decode_batch(pages)
+    assert device.prop_groups and device.n_host_pages == 0
+
+    def degenerate(*a, **k):
+        raise ValueError("non-positive glyph advance")
+
+    monkeypatch.setattr(bank_mod, "build_prop_bank", degenerate)
+    host = GridDecoder(face, ALPHA, dopts, ropts, shape)
+    assert not host.prop_groups
+    got = host.decode_batch(pages)
+    assert host.n_host_pages == len(pages)
+    key = lambda res: [[(l.text, l.y) for l in p] for p in res]
+    assert key(got) == key(want) == key([decode_image(p, face, ALPHA, dopts, ropts) for p in pages])

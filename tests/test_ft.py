@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from focr_tpu.fonts.ft import Canvas, Face, HintingOptions
+from focr_jax.fonts.ft import Canvas, Face, HintingOptions
 
 
 @pytest.fixture(scope="module")
@@ -79,3 +79,38 @@ def test_advance_px_consistency(mono):
     gid = mono.glyph_for_char("A")
     adv_px = mono.advance(gid) / m.units_per_em * 13.0
     assert 6.0 < adv_px < 9.0
+
+
+def test_loads_freetype_from_the_pillow_wheel():
+    """Hosts without a system libfreetype load the copy Pillow's wheel ships
+    (pillow.libs, no RPATH): the font layer must come up on it alone and
+    rasterize."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import ctypes, ctypes.util\n"
+        "real = ctypes.CDLL.__init__\n"
+        "def init(self, name, *a, **k):\n"
+        "    if name in ('libfreetype.so.6', 'libfreetype.so'):\n"
+        "        raise OSError(f'{name}: hidden for this test')\n"
+        "    real(self, name, *a, **k)\n"
+        "ctypes.CDLL.__init__ = init\n"
+        "ctypes.util.find_library = lambda name: None\n"
+        "from focr_jax.fonts import DEJAVU_MONO\n"
+        "from focr_jax.fonts import ft\n"
+        "assert 'pillow.libs' in ft._ft._name, ft._ft._name\n"
+        "face = ft.Face(DEJAVU_MONO)\n"
+        "assert face.glyph_for_char('A') > 0\n"
+        "print('vendored OK')\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=repo, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "JAX_PLATFORMS": "cpu"},
+    )
+    if "No module named 'PIL'" in proc.stderr:
+        pytest.skip("Pillow not installed")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "vendored OK" in proc.stdout

@@ -18,8 +18,8 @@ builder did not write:
 import numpy as np
 import pytest
 
-from focr_tpu.fonts.ft import Canvas, Face, HintingOptions
-from focr_tpu.models.types import FOCR_DEFAULT_ALPHABET, NCC_DEFAULT_ALPHABET
+from focr_jax.fonts.ft import Canvas, Face, HintingOptions
+from focr_jax.models.types import FOCR_DEFAULT_ALPHABET, NCC_DEFAULT_ALPHABET
 
 from tests.ft_golden_common import CHARS, available_fonts
 

@@ -27,7 +27,7 @@ import zlib
 import numpy as np
 import pytest
 
-from focr_tpu.fonts.ft import Canvas, Face, HintingOptions
+from focr_jax.fonts.ft import Canvas, Face, HintingOptions
 from tests.ft_golden_common import (
     FONTS, available_fonts, entry_key, iter_matrix, render_entry,
 )

@@ -6,14 +6,14 @@ bit-parity bug by definition, never acceptable noise."""
 import numpy as np
 import pytest
 
-from focr_tpu.fonts.ft import Face
-from focr_tpu.models.types import BoxSize, DecodeOptions, RenderOptions
+from focr_jax.fonts.ft import Face
+from focr_jax.models.types import BoxSize, DecodeOptions, RenderOptions
 
 
 def _noisy_text_page(rng, face, ropts, dopts, alphabet, shape):
     """Synthesized text plus salt-and-pepper noise (noise exercises the ε
     guard and tie-break paths much harder than clean renders)."""
-    from focr_tpu.io.synth import synthesize_page, random_text_lines
+    from focr_jax.io.synth import synthesize_page, random_text_lines
 
     n_lines = int(rng.integers(1, 4))
     n_chars = int(rng.integers(3, 9))
@@ -26,7 +26,7 @@ def _noisy_text_page(rng, face, ropts, dopts, alphabet, shape):
 
 @pytest.mark.parametrize("seed", range(6))
 def test_fuzz_ncc_device_vs_oracle(mono_font_path, seed):
-    from focr_tpu.models.ncc import NccMatcher
+    from focr_jax.models.ncc import NccMatcher
 
     rng = np.random.default_rng(100 + seed)
     face = Face(mono_font_path)
@@ -44,22 +44,21 @@ def test_fuzz_ncc_device_vs_oracle(mono_font_path, seed):
     page = _noisy_text_page(rng, face, ropts, dopts, alphabet, shape)
     threshold = float(rng.uniform(0.3, 0.9))
     box = BoxSize(rng.choice(["font", "alphabet", "char"]))
-    kernel = str(rng.choice(["pallas", "xla"]))
 
     m = NccMatcher(
         face, alphabet, ropts, box_size=box,
         x_bits=int(rng.integers(0, 2)), y_bits=int(rng.integers(0, 2)),
-        threshold=threshold, device_kernel=kernel,
+        threshold=threshold,
     )
     hd = m.get_hits(page)
     ho = m.get_hits_oracle(page)
     key = lambda hs: [
         (h.letter, h.x, h.y, h.w, h.h, np.float32(h.similarity).tobytes()) for h in hs
     ]
-    assert key(hd) == key(ho), f"seed {seed} box={box} kernel={kernel} thr={threshold}"
+    assert key(hd) == key(ho), f"seed {seed} box={box} thr={threshold}"
 
     # and the struct post-processing pipeline must agree with the object one
-    from focr_tpu.models.post import process_hits, process_hits_struct, process_hits_text
+    from focr_jax.models.post import process_hits, process_hits_struct, process_hits_text
 
     (struct,) = m.get_hits_many([page], struct=True)
     anchor = float(rng.uniform(threshold, 0.98))
@@ -75,8 +74,8 @@ def test_fuzz_ncc_device_vs_oracle(mono_font_path, seed):
 
 @pytest.mark.parametrize("seed", range(4))
 def test_fuzz_focr_device_vs_oracle(mono_font_path, sans_font_path, seed):
-    from focr_tpu.models.focr import GridDecoder
-    from focr_tpu.oracle.focr_oracle import decode_image
+    from focr_jax.models.focr import GridDecoder
+    from focr_jax.oracle.focr_oracle import decode_image
 
     rng = np.random.default_rng(200 + seed)
     font = mono_font_path if seed % 2 == 0 else sans_font_path
@@ -106,8 +105,8 @@ def test_fuzz_focr_device_vs_oracle(mono_font_path, sans_font_path, seed):
 def test_fuzz_adversarial_low_variance(mono_font_path, seed):
     """High-mean, near-uniform pages with tiny perturbations — the regime
     where f32 variance rounding is most dangerous for the candidate guards.
-    Both device kernels must stay hit-for-hit identical to the oracle."""
-    from focr_tpu.models.ncc import NccMatcher
+    The device path must stay hit-for-hit identical to the oracle."""
+    from focr_jax.models.ncc import NccMatcher
 
     rng = np.random.default_rng(300 + seed)
     face = Face(mono_font_path)
@@ -122,12 +121,10 @@ def test_fuzz_adversarial_low_variance(mono_font_path, seed):
         page[ys, xs].astype(int) + rng.integers(-3, 4, n_spots), 0, 255
     ).astype(np.uint8)
     threshold = float(rng.uniform(0.2, 0.9))
-    kernel = str(rng.choice(["pallas", "xla"]))
-    m = NccMatcher(face, "il.", ropts, box_size=BoxSize.CHAR,
-                   threshold=threshold, device_kernel=kernel)
+    m = NccMatcher(face, "il.", ropts, box_size=BoxSize.CHAR, threshold=threshold)
     hd = m.get_hits(page)
     ho = m.get_hits_oracle(page)
     key = lambda hs: [
         (h.letter, h.x, h.y, h.w, h.h, np.float32(h.similarity).tobytes()) for h in hs
     ]
-    assert key(hd) == key(ho), f"seed {seed} kernel={kernel} thr={threshold}"
+    assert key(hd) == key(ho), f"seed {seed} thr={threshold}"

@@ -1,7 +1,8 @@
-"""Real multi-process smoke (SURVEY.md §5.8): tools/multihost_smoke.py spawns
-2 jax.distributed processes (4 virtual CPU devices each) and runs the
-production sharded focr + ncc paths over the global 8-device mesh, asserting
-bit parity with the local engines on every process. The in-process
+"""Real multi-process smoke (SURVEY.md §5.8), CPU only:
+tools/multihost_smoke.py spawns 2 jax.distributed processes (4 virtual CPU
+devices each) and runs the production sharded focr + ncc paths over the
+global 8-device mesh, asserting bit parity with the local engines on every
+process. The in-process
 8-virtual-device tests cannot catch cross-process (non-addressable-shard)
 bugs — this one executes them for real."""
 

@@ -9,10 +9,10 @@ on random noise, rendered glyphs, and capacity-overflow inputs.
 import numpy as np
 import pytest
 
-from focr_tpu.models.types import MAX_MATCHES, RenderOptions, BoxSize
-from focr_tpu.oracle.ncc_oracle import Searcher
+from focr_jax.models.types import MAX_MATCHES, RenderOptions, BoxSize
+from focr_jax.oracle.ncc_oracle import Searcher
 
-native = pytest.importorskip("focr_tpu.native.ncc_cpu")
+native = pytest.importorskip("focr_jax.native.ncc_cpu")
 if not native.available():
     pytest.skip("native toolchain unavailable", allow_module_level=True)
 
@@ -40,10 +40,10 @@ def test_native_matches_oracle_random(seed, nw, nh):
 
 
 def test_native_matches_oracle_glyphs(mono_font_path):
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.fonts.bank import build_needles
-    from focr_tpu.models.types import DecodeOptions
-    from focr_tpu.io.synth import synthesize_page
+    from focr_jax.fonts.ft import Face
+    from focr_jax.fonts.bank import build_needles
+    from focr_jax.models.types import DecodeOptions
+    from focr_jax.io.synth import synthesize_page
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -90,10 +90,10 @@ def test_search_many_matches_single():
 
 def test_three_way_engine_parity(mono_font_path):
     """Device, native C++, and NumPy oracle paths must agree hit-for-hit."""
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.types import DecodeOptions
-    from focr_tpu.io.synth import synthesize_page
+    from focr_jax.fonts.ft import Face
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.types import DecodeOptions
+    from focr_jax.io.synth import synthesize_page
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -113,80 +113,68 @@ def test_three_way_engine_parity(mono_font_path):
     ]
 
 
-def test_native_replay_matches_numpy_replay(mono_font_path):
-    """The C++ bitmask replay must be bit-identical to the NumPy replay
-    (same f64 formula, scan order, MAX_MATCHES cap, WARN semantics)."""
-    import numpy as np
-    import pytest
+def _no_native(page):
+    raise OSError("native toolchain disabled for this test")
 
-    from focr_tpu.native import ncc_cpu
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
 
-    if not ncc_cpu.available():
-        pytest.skip("native toolchain unavailable")
+@pytest.mark.parametrize("cap", [1, 4, 16])
+def test_native_replay_matches_numpy_replay(mono_font_path, monkeypatch, cap):
+    """Needles whose device candidates overflow the cap are searched on the
+    host: the C++ searcher and the NumPy oracle searcher must give
+    bit-identical hits, equal to the all-oracle path, and every such needle
+    is counted (NccMatcher.n_host_overflow)."""
+    import focr_jax.models.ncc as ncc_mod
+    from focr_jax.native import ncc_cpu
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.types import DecodeOptions, RenderOptions
+
+    monkeypatch.setattr(ncc_mod, "_CAP", cap)
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
     dopts = DecodeOptions(x_start=5, y_start=6, line_height=13, line_advance=15, width=110)
     page = synthesize_page(face, ["AB01ab", "10BAba"], dopts, ropts, "AB01ab", (64, 128))
-    m = NccMatcher(face, "AB01ab", ropts, x_bits=1, threshold=0.5,
-                   device_kernel="pallas")
+    m = NccMatcher(face, "AB01ab", ropts, x_bits=1, threshold=0.3)
     with_native = m.get_hits(page)
-
-    import focr_tpu.native.ncc_cpu as mod
-    orig = mod.available
-    try:
-        mod.available = lambda: False
+    overflowed = m.n_host_overflow
+    assert overflowed > 0, "the cap never overflowed: nothing exercised"
+    with monkeypatch.context() as mp:
+        mp.setattr(ncc_cpu, "NativeSearcher", _no_native)
         without = m.get_hits(page)
-    finally:
-        mod.available = orig
+    assert m.n_host_overflow == 2 * overflowed
     key = lambda hs: [
         (h.letter, h.x, h.y, h.w, h.h, np.float32(h.similarity).tobytes()) for h in hs
     ]
     assert len(with_native) > 0
-    assert key(with_native) == key(without)
+    assert key(with_native) == key(without) == key(m.get_hits_oracle(page))
 
 
-import pytest as _pytest
-
-
-@_pytest.mark.parametrize("caph,max_matches", [(49152, 2), (96, 1024)])
-def test_native_replay_cap_warn_and_overflow(mono_font_path, monkeypatch, caph, max_matches):
+@pytest.mark.parametrize("cap,max_matches", [(1 << 14, 2), (16, 1024)])
+def test_native_replay_cap_warn_and_overflow(mono_font_path, monkeypatch, cap, max_matches):
     """Dense low-threshold page under (a) a tiny MAX_MATCHES (exercises the
-    scan-order truncation + WARN emission) and (b) a small global candidate cap
-    (exercises native-replay/host-fallback coexistence): results must stay
-    bit-identical to the NumPy replay."""
-    import numpy as np
-    import pytest
+    scan-order truncation + WARN emission of the device replay) and (b) a
+    small candidate cap (exercises device replay and host search side by
+    side): results and WARN counts must not depend on which host searcher
+    (native or NumPy) serves the overflowed needles."""
+    import focr_jax.models.ncc as ncc_mod
+    from focr_jax.native import ncc_cpu
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.types import DecodeOptions, RenderOptions
 
-    from focr_tpu.native import ncc_cpu
-    import focr_tpu.models.ncc as ncc_mod
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
-
-    if not ncc_cpu.available():
-        pytest.skip("native toolchain unavailable")
     monkeypatch.setattr(ncc_mod, "MAX_MATCHES", max_matches)
-    monkeypatch.setattr(ncc_mod, "_CAPH_START", caph)
-    monkeypatch.setattr(ncc_mod, "_CAPH_MAX", caph)
+    monkeypatch.setattr(ncc_mod, "_CAP", cap)
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
     dopts = DecodeOptions(x_start=5, y_start=6, line_height=13, line_advance=15, width=110)
     page = synthesize_page(face, ["ABABAB", "BABABA"], dopts, ropts, "AB", (64, 128))
-    m = NccMatcher(face, "AB", ropts, x_bits=1, threshold=0.1,
-                   device_kernel="pallas")
+    m = NccMatcher(face, "AB", ropts, x_bits=1, threshold=0.1)
     with_native, err_a = _run_capture(m, page)
-    import focr_tpu.native.ncc_cpu as mod
-    orig = mod.available
-    try:
-        mod.available = lambda: False
+    with monkeypatch.context() as mp:
+        mp.setattr(ncc_cpu, "NativeSearcher", _no_native)
         without, err_b = _run_capture(m, page)
-    finally:
-        mod.available = orig
     key = lambda hs: [
         (h.letter, h.x, h.y, np.float32(h.similarity).tobytes()) for h in hs
     ]
@@ -195,6 +183,9 @@ def test_native_replay_cap_warn_and_overflow(mono_font_path, monkeypatch, caph, 
     assert err_a.count("WARN") == err_b.count("WARN")
     if max_matches == 2:
         assert err_a.count("WARN") > 0
+        assert m.n_host_overflow == 0
+    else:
+        assert m.n_host_overflow > 0
 
 
 def _run_capture(m, page):

@@ -5,10 +5,10 @@ import time
 import numpy as np
 import pytest
 
-from focr_tpu.fonts.ft import Face
-from focr_tpu.models.ncc import NccMatcher
-from focr_tpu.models.post import process_hits
-from focr_tpu.models.types import BoxSize, RenderOptions
+from focr_jax.fonts.ft import Face
+from focr_jax.models.ncc import NccMatcher
+from focr_jax.models.post import process_hits
+from focr_jax.models.types import BoxSize, RenderOptions
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +82,7 @@ def test_e2e_stamped_text_decodes(mono):
 
 
 def test_process_hits_dedup_last_max():
-    from focr_tpu.models.types import MatchWithLetter
+    from focr_jax.models.types import MatchWithLetter
 
     mk = lambda letter, x, sim: MatchWithLetter(letter, x, 5, 4, 4, sim)
     # two hits within overlap, equal sim -> LAST one wins (Rust max_by)
@@ -92,7 +92,7 @@ def test_process_hits_dedup_last_max():
 
 
 def test_process_hits_anchor_filter():
-    from focr_tpu.models.types import MatchWithLetter
+    from focr_jax.models.types import MatchWithLetter
 
     mk = lambda letter, x, y, sim: MatchWithLetter(letter, x, y, 4, 4, sim)
     # y=5 has an anchor; y=20 has only weak hits -> dropped entirely
@@ -109,10 +109,10 @@ def test_get_hits_many_matches_single(mono_font_path):
     """Batched multi-page dispatch must be hit-for-hit identical to per-page."""
     import numpy as np
 
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.types import DecodeOptions, RenderOptions
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -133,11 +133,11 @@ def test_struct_pipeline_matches_objects(mono_font_path):
     object pipeline (get_hits + process_hits), including tie-break order."""
     import numpy as np
 
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.post import process_hits, process_hits_struct
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.post import process_hits, process_hits_struct
+    from focr_jax.models.types import DecodeOptions, RenderOptions
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -166,11 +166,11 @@ def test_struct_pipeline_matches_objects(mono_font_path):
 def test_text_path_and_fused_post_match_objects(mono_font_path):
     """process_hits_text and the pipeline-fused post= callback must yield
     exactly the text the object pipeline prints (ncc.rs:868-877)."""
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.post import process_hits, process_hits_text
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.post import process_hits, process_hits_text
+    from focr_jax.models.types import DecodeOptions, RenderOptions
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -204,10 +204,10 @@ def test_get_hits_many_mixed_shapes(mono_font_path):
     (and >1 wave of pages) must stay hit-for-hit identical to per-page."""
     import numpy as np
 
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.types import DecodeOptions, RenderOptions
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -237,11 +237,11 @@ def test_subpixel_duplicate_chars_are_reference_semantics(mono_font_path):
     SAME imperfect text, bit-identically."""
     import numpy as np
 
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.post import process_hits, process_hits_text
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.post import process_hits, process_hits_text
+    from focr_jax.models.types import DecodeOptions, RenderOptions
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=13.0)
@@ -266,7 +266,7 @@ def test_line_matches_truth_rules():
     """Acceptance rule used by bench/soak truth checks: extra copies INSIDE an
     existing run are tolerated (duplicate-char semantics); anything else is a
     mismatch."""
-    from focr_tpu.models.post import line_matches_truth as m
+    from focr_jax.models.post import line_matches_truth as m
 
     assert m("abc", "abc")
     assert m("ab==c", "ab=c")  # extra '=' inside the '=' run
@@ -281,8 +281,8 @@ def test_line_matches_truth_rules():
 def test_adaptive_pipeline_depth(mono_font_path, monkeypatch):
     """A stalled wave fetch must deepen the pipeline (shape-stable adaptive
     knob) without changing results or their order."""
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.types import RenderOptions
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.types import RenderOptions
 
     face = Face(mono_font_path)
     rng = np.random.default_rng(2)
@@ -296,9 +296,7 @@ def test_adaptive_pipeline_depth(mono_font_path, monkeypatch):
     monkeypatch.delenv("FOCR_NCC_DEPTH", raising=False)
 
     def run(stall: bool):
-        m = NccMatcher(
-            face, "AB", RenderOptions(size=11.0), device_kernel="pallas"
-        )
+        m = NccMatcher(face, "AB", RenderOptions(size=11.0))
         orig = m._fetch_wave
         calls = {"n": 0}
 
@@ -324,20 +322,22 @@ def test_adaptive_pipeline_depth(mono_font_path, monkeypatch):
     assert m1._last_depth > 3, "stall should have deepened the pipeline"
 
 
+@pytest.mark.parametrize("budget_pages,want_tall", [(1, 1), (3, 2), (100, 8)])
 def test_mixed_shape_corpus_waves_sized_from_max_shape(
-    monkeypatch, mono_font_path
+    monkeypatch, mono_font_path, budget_pages, want_tall
 ):
-    """Wave sizing must bound the PADDED wave x mask plane for EVERY shape
-    bucket in a mixed-shape corpus, not just pages[0]'s shape
-    (models/ncc.py::_wave_for): _dispatch_wave buckets by shape WITHIN a
-    wave, so a small-pages-first corpus sized from its first page would
-    overshoot the HBM budget when a later bucket holds 2500x2000 pages.
-    The reference's page fan-out is order-independent (ncc.rs:839-847)."""
-    from focr_tpu.fonts.ft import Face as FtFace
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models import ncc as ncc_mod
-    from focr_tpu.models.types import DecodeOptions
-    from focr_tpu.ops import pallas_ncc
+    """Wave sizing must bound the PADDED wave x per-page device planes
+    (models/ncc.py::_page_bytes) for EVERY shape bucket in a mixed-shape
+    corpus, not just pages[0]'s shape (models/ncc.py::_wave_for):
+    _dispatch_wave buckets by shape WITHIN a wave, so a small-pages-first
+    corpus sized from its first page would overshoot the HBM budget when a
+    later bucket holds 2500x2000 pages. Budgets of 1, 3 and 100 tall pages
+    give waves of 1, 2 (the {1, 2, 4} padding steps) and the cap of 8. The
+    reference's page fan-out is order-independent (ncc.rs:839-847)."""
+    from focr_jax.fonts.ft import Face as FtFace
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models import ncc as ncc_mod
+    from focr_jax.models.types import DecodeOptions
 
     face = FtFace(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -346,8 +346,8 @@ def test_mixed_shape_corpus_waves_sized_from_max_shape(
     )
     small = synthesize_page(face, ["AB01"], dopts, ropts, "AB01", (64, 128))
     # tall pages are blank (inverted sum 0 -> no crop, no device sweep), so
-    # the test exercises the sizing arithmetic without a 2500x2000 interpret
-    # sweep; the budget invariant under test is shape-only arithmetic
+    # the test exercises the sizing arithmetic without a 2500x2000 sweep;
+    # the budget invariant under test is shape-only arithmetic
     tall = np.full((2500, 2000), 255, np.uint8)
     pages = [small] * 4 + [tall] * 8
 
@@ -355,20 +355,18 @@ def test_mixed_shape_corpus_waves_sized_from_max_shape(
     m = NccMatcher(face, "AB01", ropts, x_bits=0)
 
     def plane(H, W):
-        per = 0
-        for g in m.groups:
-            if g.nh >= H or g.nw >= W:
-                continue
-            Hs8 = pallas_ncc.mask_plane_rows(H, W, g.nw, g.nh, len(g.needle_ids))
-            Tp = pallas_ncc.pad_t(len(g.needle_ids), H, W, g.nw, g.nh)
-            WB = pallas_ncc.word_stride(W, g.nw) * 8
-            per = max(per, Hs8 * Tp * WB)
-        return per
+        return max(
+            ncc_mod._page_bytes(g, H, W)
+            for g in m.groups
+            if g.nh < H and g.nw < W
+        )
 
-    # budget admits 3 tall planes: sizing from the small first page (the
-    # former bug) would pad the tall bucket to 4+ pages and overshoot
-    budget = plane(2500, 2000) * 3
+    # the tall planes dominate: the small page's are far below them
+    assert plane(2500, 2000) > 100 * plane(64, 128)
+    budget = plane(2500, 2000) * budget_pages
     monkeypatch.setattr(ncc_mod, "_hbm_budget", lambda: budget)
+    assert m._wave_for(pages) == want_tall
+    assert m._wave_for([small]) == 8  # a small-only corpus keeps full waves
 
     seen: list[list[tuple[int, int]]] = []
     orig = NccMatcher._dispatch_wave

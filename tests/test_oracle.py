@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from focr_tpu.models.post import partition_by
-from focr_tpu.models.types import MAX_MATCHES
-from focr_tpu.oracle.ncc_oracle import (
+from focr_jax.models.post import partition_by
+from focr_jax.models.types import MAX_MATCHES
+from focr_jax.oracle.ncc_oracle import (
     Searcher,
     invert_u8,
     rect_sum_nz,
@@ -144,7 +144,7 @@ def test_integral_table_wrap_on_huge_dark_page():
     int64 BEFORE differencing (the old bug) yields sums off by k*2^32."""
     import numpy as np
 
-    from focr_tpu.oracle.ncc_oracle import Searcher, rect_sum_nz
+    from focr_jax.oracle.ncc_oracle import Searcher, rect_sum_nz
 
     H = W = 4200  # 17.6M px, all ink after inversion -> table wraps u32
     page = np.zeros((H, W), dtype=np.uint8)  # black page -> inverted 255

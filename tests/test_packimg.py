@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-from focr_tpu.ops import packimg
+from focr_jax.ops import packimg
 
 
 def _roundtrip(inv: np.ndarray) -> np.ndarray:
@@ -65,12 +65,13 @@ def test_dispatch_gate_and_bit_parity(monkeypatch):
     """A dense search must be bit-identical whichever upload path carried the
     pixels — run the same page through a forced-packed and a forced-raw
     matcher and compare raw CSV output byte for byte."""
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.types import NCC_DEFAULT_ALPHABET, RenderOptions
+    from focr_jax.fonts.ft import Face
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.types import NCC_DEFAULT_ALPHABET, RenderOptions
 
-    font = "/usr/share/fonts/truetype/dejavu/DejaVuSansMono.ttf"
-    face = Face(font)
+    from focr_jax.fonts import DEJAVU_MONO
+
+    face = Face(DEJAVU_MONO)
     ropts = RenderOptions(size=11.0)
     rng = np.random.default_rng(11)
     page = np.full((80, 120), 255, np.uint8)
@@ -83,7 +84,7 @@ def test_dispatch_gate_and_bit_parity(monkeypatch):
     for env in ("0", "1"):
         monkeypatch.setenv("FOCR_NCC_PACK", env)
         m = NccMatcher(
-            face, NCC_DEFAULT_ALPHABET[:12], ropts, x_bits=1, device_kernel="pallas"
+            face, NCC_DEFAULT_ALPHABET[:12], ropts, x_bits=1
         )
         hits = m.get_hits(page)
         outs[env] = [

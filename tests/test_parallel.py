@@ -9,13 +9,13 @@ import numpy as np
 import jax
 import pytest
 
-from focr_tpu.fonts.ft import Face
-from focr_tpu.fonts.bank import build_grid_bank, build_needles
-from focr_tpu.models.focr import GridDecoder, _row_groups
-from focr_tpu.models.types import BoxSize, DecodeOptions, RenderOptions
-from focr_tpu.io.synth import synthesize_page, random_text_lines
-from focr_tpu.parallel.mesh import page_mesh, pad_batch
-from focr_tpu.parallel.decode import make_sharded_grid_fn, make_sharded_ncc_fn
+from focr_jax.fonts.ft import Face
+from focr_jax.fonts.bank import build_grid_bank, build_needles
+from focr_jax.models.focr import GridDecoder, _row_groups
+from focr_jax.models.types import BoxSize, DecodeOptions, RenderOptions
+from focr_jax.io.synth import synthesize_page, random_text_lines
+from focr_jax.parallel.mesh import page_mesh, pad_batch
+from focr_jax.parallel.decode import make_sharded_grid_fn, make_sharded_ncc_fn
 
 ALPHA = "ABC abc019+/"
 
@@ -45,7 +45,7 @@ def test_sharded_grid_matches_single_chip(setup, glyph_shards):
     mesh = page_mesh(glyph_shards=glyph_shards)
     dec = GridDecoder(face, ALPHA, dopts, ropts, shape)
     padded, B = pad_batch(pages, mesh.shape["pages"])
-    from focr_tpu.models.focr import crop_strips
+    from focr_jax.models.focr import crop_strips
 
     for (grp, fn_single) in dec.groups:
         bank = build_grid_bank(face, ALPHA, ropts, dec.crop_w, grp.crop_h)
@@ -82,19 +82,22 @@ def test_sharded_decode_end_to_end(setup):
         assert white[b].all()
 
 
-def test_sharded_ncc_matches_single_chip(setup, mono_font_path):
+@pytest.mark.parametrize("n_dev,chunk", [(8, 1), (2, 3), (2, 8)])
+def test_sharded_ncc_matches_single_chip(setup, mono_font_path, n_dev, chunk):
+    """Each device sweeps its local pages ``chunk`` at a time (lax.map);
+    every chunking, remainder included, equals the per-page sweep."""
     face, ropts, dopts, shape, pages = setup
-    from focr_tpu.ops import ncc as ncc_ops
+    from focr_jax.ops import ncc as ncc_ops
     import jax.numpy as jnp
 
     needles = build_needles(face, "AB0", ropts, BoxSize.ALPHABET, 0, 0)
     bank = np.stack([n.pixels for n in needles])
     s_n = np.array([n.s_n for n in needles], dtype=np.int64)
     s2_n = np.array([n.s2_n for n in needles], dtype=np.int64)
-    mesh = page_mesh(glyph_shards=1)
+    mesh = page_mesh(jax.devices()[:n_dev], glyph_shards=1)
     padded, B = pad_batch(pages, mesh.size)
     inv = (255 - padded.astype(np.int32)).astype(np.uint8)
-    fn = make_sharded_ncc_fn(mesh, bank, s_n, s2_n, 0.8, cap=256)
+    fn = make_sharded_ncc_fn(mesh, bank, s_n, s2_n, 0.8, cap=256, chunk=chunk)
     idx_m, acc_m, sp_m, s2p_m, counts_m = jax.device_get(fn(jnp.asarray(inv)))
     for b in range(B):
         idx, acc, sp, s2p, counts = jax.device_get(
@@ -113,11 +116,11 @@ def test_grid_decoder_mesh_parity(mono_font_path):
     including batch padding/trim for non-divisible batch sizes."""
     import numpy as np
 
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.focr import GridDecoder
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
-    from focr_tpu.parallel.mesh import page_mesh
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.focr import GridDecoder
+    from focr_jax.models.types import DecodeOptions, RenderOptions
+    from focr_jax.parallel.mesh import page_mesh
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=10.0)
@@ -146,10 +149,10 @@ def test_focr_cli_mesh_auto(mono_font_path, tmp_path, capsys):
     """--mesh auto routes through the sharded decoder on the 8-dev CPU mesh."""
     from PIL import Image
 
-    from focr_tpu.cli.focr import main
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.types import DecodeOptions, FOCR_DEFAULT_ALPHABET, RenderOptions
+    from focr_jax.cli.focr import main
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.types import DecodeOptions, FOCR_DEFAULT_ALPHABET, RenderOptions
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -169,11 +172,11 @@ def test_ncc_sharded_matches_single(mono_font_path):
     bit, including batch padding for a non-divisible page count."""
     import numpy as np
 
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
-    from focr_tpu.parallel.mesh import page_mesh
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.types import DecodeOptions, RenderOptions
+    from focr_jax.parallel.mesh import page_mesh
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -191,14 +194,14 @@ def test_ncc_sharded_matches_single(mono_font_path):
 
 
 def test_ncc_sharded_fused_post(mono_font_path):
-    """post= fused into both sharded branches (XLA shard_map and per-device
-    Pallas scatter) must yield the object pipeline's exact text lines."""
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.post import process_hits, process_hits_text
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
-    from focr_tpu.parallel.mesh import page_mesh
+    """post= fused into the sharded path must yield the object pipeline's
+    exact text lines."""
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.post import process_hits, process_hits_text
+    from focr_jax.models.types import DecodeOptions, RenderOptions
+    from focr_jax.parallel.mesh import page_mesh
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -209,23 +212,22 @@ def test_ncc_sharded_fused_post(mono_font_path):
     ]
     mesh = page_mesh(glyph_shards=1)
     post = lambda hs: process_hits_text(hs, 0.95, 5)
-    for kernel in ("auto", "pallas"):
-        m = NccMatcher(face, "AB01ab", ropts, x_bits=1, device_kernel=kernel)
-        fused = m.get_hits_many_sharded(pages, mesh, struct=True, post=post)
-        want = [
-            ["".join(h.letter for h in ln) for ln in process_hits(m.get_hits(p), 0.95, 5)]
-            for p in pages
-        ]
-        assert fused == want, kernel
+    m = NccMatcher(face, "AB01ab", ropts, x_bits=1)
+    fused = m.get_hits_many_sharded(pages, mesh, struct=True, post=post)
+    want = [
+        ["".join(h.letter for h in ln) for ln in process_hits(m.get_hits(p), 0.95, 5)]
+        for p in pages
+    ]
+    assert fused == want
 
 
 def test_ncc_cli_mesh_auto(mono_font_path, tmp_path, capsys):
     from PIL import Image
 
-    from focr_tpu.cli.ncc import main
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
+    from focr_jax.cli.ncc import main
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.types import DecodeOptions, RenderOptions
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
@@ -249,11 +251,11 @@ def test_prop_decoder_mesh_parity(sans_font_path):
     are trimmed)."""
     import numpy as np
 
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.focr import GridDecoder
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
-    from focr_tpu.parallel.mesh import page_mesh
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.focr import GridDecoder
+    from focr_jax.models.types import DecodeOptions, RenderOptions
+    from focr_jax.parallel.mesh import page_mesh
 
     face = Face(sans_font_path)
     alpha = "AWim01"
@@ -279,46 +281,13 @@ def test_prop_decoder_mesh_parity(sans_font_path):
     ]
 
 
-def test_ncc_sharded_pallas_scatter_matches_single(mono_font_path):
-    """device_kernel='pallas' on a mesh: pages scatter round-robin across the
-    8 virtual devices, each running the fused Pallas kernel (interpret mode on
-    CPU) — results bit-identical to single-chip get_hits, no downgrade note."""
-    import io
-    from contextlib import redirect_stderr
-
-    import numpy as np
-
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
-    from focr_tpu.parallel.mesh import page_mesh
-
-    face = Face(mono_font_path)
-    ropts = RenderOptions(size=11.0)
-    dopts = DecodeOptions(x_start=5, y_start=6, line_height=13, line_advance=15, width=110)
-    pages = [
-        synthesize_page(face, [t], dopts, ropts, "AB01ab", (64, 128))
-        for t in ("AB01ab", "ba10BA", "A0b1aB")
-    ]
-    m = NccMatcher(face, "AB01ab", ropts, x_bits=1, device_kernel="pallas")
-    mesh = page_mesh(glyph_shards=1)
-    err = io.StringIO()
-    with redirect_stderr(err):
-        sharded = m.get_hits_many_sharded(pages, mesh)
-    assert "XLA conv kernel" not in err.getvalue()
-    single = [m.get_hits(p) for p in pages]
-    key = lambda hs: [(h.letter, h.x, h.y, h.w, h.h, np.float32(h.similarity).tobytes()) for h in hs]
-    assert [key(h) for h in sharded] == [key(h) for h in single]
-
-
 def test_merge_shards_reproduces_global_order(setup):
     """The §5.8 multi-host gather's merge: reassembling a mesh-sharded array
     from its (global_index, data) shards must equal the full device_get —
     this is the exact code path fetch_global takes for each leaf under
     jax.process_count() > 1 (non-addressable-safe), validated here on the
     8-virtual-device mesh where every shard IS addressable."""
-    from focr_tpu.parallel.mesh import merge_shards, pages_sharding
+    from focr_jax.parallel.mesh import merge_shards, pages_sharding
 
     mesh = page_mesh()
     arr = np.arange(8 * 3 * 5, dtype=np.int32).reshape(8, 3, 5)
@@ -341,7 +310,7 @@ def test_put_global_callback_matches_device_put(setup):
     """put_global's multi-process branch (make_array_from_callback slicing
     the full host batch per shard) must build the same global array as the
     single-process device_put branch."""
-    from focr_tpu.parallel.mesh import pages_sharding
+    from focr_jax.parallel.mesh import pages_sharding
 
     mesh = page_mesh()
     sh = pages_sharding(mesh)
@@ -355,8 +324,8 @@ def test_put_global_callback_matches_device_put(setup):
 def test_fetch_global_multiprocess_branch(setup, monkeypatch):
     """fetch_global under a simulated process_count > 1 must take the
     shard-merge branch and still return the exact global values."""
-    import focr_tpu.parallel.mesh as mesh_mod
-    from focr_tpu.parallel.mesh import fetch_global, pages_sharding
+    import focr_jax.parallel.mesh as mesh_mod
+    from focr_jax.parallel.mesh import fetch_global, pages_sharding
 
     mesh = page_mesh()
     arr = np.arange(8 * 6, dtype=np.float32).reshape(8, 6)
@@ -375,17 +344,17 @@ def test_sharded_fn_cache_keyed_by_mesh_value(mono_font_path):
     correct, the compiled fn only depends on the mesh value."""
     from jax.sharding import Mesh
 
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
-    from focr_tpu.models.types import DecodeOptions, RenderOptions
-    from focr_tpu.parallel.mesh import page_mesh
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
+    from focr_jax.models.types import DecodeOptions, RenderOptions
+    from focr_jax.parallel.mesh import page_mesh
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=11.0)
     dopts = DecodeOptions(x_start=5, y_start=6, line_height=13, line_advance=15, width=110)
     page = synthesize_page(face, ["AB01"], dopts, ropts, "AB01", (64, 128))
-    m = NccMatcher(face, "AB01", ropts, x_bits=0, device_kernel="xla")
+    m = NccMatcher(face, "AB01", ropts, x_bits=0)
     mesh = page_mesh(glyph_shards=1)
     m.get_hits_many_sharded([page], mesh)
     assert m._sharded_fns, "sharded path did not populate the cache"
@@ -394,18 +363,17 @@ def test_sharded_fn_cache_keyed_by_mesh_value(mono_font_path):
     # meshes, so this can be the same object — the invariant under test is
     # VALUE lookup, which holds either way and survives de-interning)
     mesh_eq = Mesh(mesh.devices, mesh.axis_names)
-    assert all((mesh_eq, k[1]) in m._sharded_fns for k in list(m._sharded_fns))
+    assert all((mesh_eq, *k[1:]) in m._sharded_fns for k in list(m._sharded_fns))
     # a mesh with different axis names misses, even at whatever address
     mesh_other = Mesh(mesh.devices.reshape(mesh.devices.size, 1), ("rows", "cols"))
-    assert all((mesh_other, k[1]) not in m._sharded_fns for k in list(m._sharded_fns))
+    assert all((mesh_other, *k[1:]) not in m._sharded_fns for k in list(m._sharded_fns))
 
 
 def test_hbm_budget_from_device_memory_stats(monkeypatch):
     """Wave sizing derives its HBM budget from the device's reported
     capacity (45%), falling back to 4 GB when the backend reports none
-    (models/ncc.py::_hbm_budget — a v5e reports ~16 GB, so tall-page corpora
-    get larger waves than the former hard-coded 4 GB allowed)."""
-    from focr_tpu.models import ncc as ncc_mod
+    (models/ncc.py::_hbm_budget)."""
+    from focr_jax.models import ncc as ncc_mod
 
     class Dev:
         def __init__(self, stats):

@@ -11,9 +11,9 @@ negative/zero/huge overlaps.
 import numpy as np
 import pytest
 
-from focr_tpu.models import post as post_mod
-from focr_tpu.models.post import _run_winners
-from focr_tpu.native import ncc_cpu
+from focr_jax.models import post as post_mod
+from focr_jax.models.post import _run_winners
+from focr_jax.native import ncc_cpu
 
 
 def _numpy_winners(lkey, lsim, ov, N):
@@ -106,8 +106,8 @@ def test_winner_arrays_native_matches_numpy(monkeypatch):
     path must return identical winner arrays and line bounds."""
     if not ncc_cpu.available():
         pytest.skip("native toolchain unavailable")
-    from focr_tpu.models.ncc import HitStruct
-    from focr_tpu.models.post import _winner_arrays
+    from focr_jax.models.ncc import HitStruct
+    from focr_jax.models.post import _winner_arrays
 
     rng = np.random.default_rng(17)
     for trial in range(6):
@@ -142,8 +142,8 @@ def test_run_winners_numpy_fallback_used_when_native_missing(monkeypatch):
 def test_winner_arrays_matches_object_pipeline():
     """Randomized HitStruct-level check: the vectorized pipeline must equal
     the literal partition_by port for text/struct outputs (ties included)."""
-    from focr_tpu.models.post import process_hits, process_hits_struct
-    from focr_tpu.models.types import MatchWithLetter
+    from focr_jax.models.post import process_hits, process_hits_struct
+    from focr_jax.models.types import MatchWithLetter
 
     class _FakeNeedle:
         def __init__(self, letter):
@@ -164,7 +164,7 @@ def test_winner_arrays_matches_object_pipeline():
         y = (rng.integers(0, 6, N) * 15 + 9).astype(np.int64)
         sim = (rng.integers(70, 100, N) / 100.0).astype(np.float32)
         hs = post_mod.__dict__  # noqa: F841 - readability
-        from focr_tpu.models.ncc import HitStruct
+        from focr_jax.models.ncc import HitStruct
 
         # HitStruct iteration order: grouped by needle id like the engine
         order = np.argsort(nid, kind="stable")

@@ -12,8 +12,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from focr_tpu.models.types import BoxSize, DecodeOptions, RenderOptions
-from focr_tpu.oracle.ncc_direct import direct_search
+from focr_jax.models.types import BoxSize, DecodeOptions, RenderOptions
+from focr_jax.oracle.ncc_direct import direct_search
 
 
 def _key(ms):
@@ -24,7 +24,7 @@ def test_direct_checker_matches_primary_oracle_narrow():
     """Sanity: on narrow needles (<=16 px) the brute-force checker must agree
     with the integral-table Searcher bit for bit — otherwise it proves
     nothing about the wide paths."""
-    from focr_tpu.oracle.ncc_oracle import Searcher
+    from focr_jax.oracle.ncc_oracle import Searcher
 
     rng = np.random.default_rng(11)
     page = rng.integers(180, 256, (56, 90), dtype=np.uint8)
@@ -41,9 +41,9 @@ def test_direct_checker_matches_primary_oracle_narrow():
 def test_xla_wide_sweep_matches_direct(seed, nh, nw, thr):
     """The XLA candidate sweep + exact host replay at nw>16, hit-for-hit vs
     the brute-force checker on noisy pages with planted matches."""
-    from focr_tpu.models.ncc import exact_similarities
-    from focr_tpu.ops import ncc as ncc_ops
-    from focr_tpu.models.types import MAX_MATCHES
+    from focr_jax.models.ncc import exact_similarities
+    from focr_jax.ops import ncc as ncc_ops
+    from focr_jax.models.types import MAX_MATCHES
 
     rng = np.random.default_rng(seed)
     H, W, T = 72, 120, 3
@@ -87,9 +87,9 @@ def test_xla_wide_sweep_matches_direct(seed, nh, nw, thr):
 def test_matcher_wide_needles_match_direct(mono_font_path):
     """Full NccMatcher pipeline with real padded (wide) font needles: each
     needle's hits must equal the brute-force checker's, in order."""
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
 
     face = Face(mono_font_path)
     ropts = RenderOptions(size=13.0)
@@ -116,10 +116,10 @@ def test_redo_wide_matches_direct(mono_font_path, monkeypatch):
     """Candidate-cap overflow on a wide needle takes _redo_wide (count-sized
     device re-dispatch — no host kernel supports nw>16); results must still
     equal the brute-force checker."""
-    import focr_tpu.models.ncc as ncc_mod
-    from focr_tpu.fonts.ft import Face
-    from focr_tpu.io.synth import synthesize_page
-    from focr_tpu.models.ncc import NccMatcher
+    import focr_jax.models.ncc as ncc_mod
+    from focr_jax.fonts.ft import Face
+    from focr_jax.io.synth import synthesize_page
+    from focr_jax.models.ncc import NccMatcher
 
     monkeypatch.setattr(ncc_mod, "_CAP", 8)  # force overflow on dense pages
     redos = []
